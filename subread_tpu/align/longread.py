@@ -5,7 +5,7 @@ over many subreads followed by *chaining* of vote clusters along the read
 (longread-mapping.c:529-660), indel/junction events between chained
 anchors (LRMchro-event.c), reads up to 1.2 Mbp (LRMconfig.h:25).
 
-TPU formulation: a long read is a batch of fixed 100bp windows (the
+Device formulation: a long read is a batch of fixed 100bp windows (the
 sequence axis becomes the batch axis — the reference's chaining loop is
 replaced by one more round of *voting*, this time over window diagonals):
 
@@ -396,7 +396,7 @@ def map_long_reads_sharded(
 ) -> list[LongReadHit]:
     """Sequence-parallel long-read mapping over a device mesh.
 
-    The TPU answer to the reference's 1.2Mbp single-thread chaining loop
+    The device answer to the reference's 1.2Mbp single-thread chaining loop
     (longread-mapping.c:529-660) and SURVEY §5's long-context scaling item:
     a long read's fixed 100bp windows ARE batch rows here, so sharding the
     reads axis of the window batch across the mesh splits ONE extreme read

@@ -6,7 +6,7 @@ the 30x24 vote table, first-match slot assignment over the iix row scan,
 one-vote-per-subread with spill to the next matching slot, the section
 back-off rule, the shift-indel mark + round-2 re-run with zero tolerance
 at marked slots, and row-capacity drops.  Used by tests and diagnostics as
-the ground truth the dense TPU kernel (ops.vote) must reproduce; too slow
+the ground truth the dense device kernel (ops.vote) must reproduce; too slow
 for production (one read at a time).
 """
 

@@ -54,7 +54,7 @@ class AlignConfig:
     rg_id: str | None = None
     rg_extra: tuple[str, ...] = ()
 
-    # batching / chunking (TPU-side)
+    # batching / chunking (device side; sizes tuned before the GPU port)
     batch_reads: int = 8192           # device batch (reference chunk = 20M)
     pad_read_len: int = 128           # static read-length bucket
 

@@ -3,10 +3,9 @@
 Reference equivalents: `gehash_t` + builder (sorted-hashtable.c:77-281,
 index-builder.c:78-445).  The reference stores per-bucket sorted short
 keys + positions in 64K slab groups with bucket = key % B and an
-in-bucket binary search (sorted-hashtable.c:960-981).  The TPU-native
-layout is co-designed with the gather engine instead — on TPU every
-gathered element costs a fixed ~12ns issue slot, so the layout minimises
-gathered elements per probe:
+in-bucket binary search (sorted-hashtable.c:960-981).  This layout is
+co-designed with the device gather instead, and minimises gathered
+elements per probe:
 
     bucket_start : int32 [B+1]      B = 2**bucket_bits, bucket = key >> (32-bits)
     check_words  : uint32 [N/2+pad] half i%2 of word i//2 = check16(entry i)
@@ -97,9 +96,8 @@ class HashIndex:
     @property
     def comb_rows(self) -> np.ndarray:
         """Combined device rows: uint32 [G, 20] — 16 positions + their 16
-        check bytes packed into 4 words per row of GROUP=16 entries.  2-D
-        ROW gathers are ~25x cheaper per element than scalar gathers on
-        TPU, so ops.vote.gather_hits fetches whole probe windows this way.
+        check bytes packed into 4 words per row of GROUP=16 entries, so
+        ops.vote.gather_hits fetches whole probe windows as 2-D rows.
         Built lazily and cached (cheap reshuffle of positions+check_words)."""
         if getattr(self, "_comb_rows", None) is None:
             self._comb_rows = build_comb_rows(self.positions, self.check_words)

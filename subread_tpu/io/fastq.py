@@ -4,11 +4,11 @@ Reference equivalent: the FASTQ arm of `gene_input_t`
 (`geinput_next_read`, input-files.c:768) plus quality-format detection
 (`guess_reads_density_format`, input-files.h:283).
 
-TPU-first design: instead of a per-read streaming API, reads are parsed into
-fixed-shape dense batches (codes [N, Lmax] uint8, lengths, quals) that upload
-straight to HBM.  Chunk replay (the reference's geinput_tell/seek, used to
-re-scan each chunk once per index block and once for realignment) becomes
-simply keeping the parsed chunk in host RAM.
+Device-first design: instead of a per-read streaming API, reads are parsed
+into fixed-shape dense batches (codes [N, Lmax] uint8, lengths, quals) that
+upload straight to device memory.  Chunk replay (the reference's
+geinput_tell/seek, used to re-scan each chunk once per index block and once
+for realignment) becomes simply keeping the parsed chunk in host RAM.
 """
 
 from __future__ import annotations

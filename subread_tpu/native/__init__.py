@@ -1,7 +1,8 @@
 """Native host layer: C++ hot loops for the output path.
 
 Compiled lazily with g++ on first use; everything has a pure-Python
-fallback so the package works without a toolchain.
+fallback so the package works without a toolchain.  `build_error()` says
+why the library is missing when `get_lib()` returns None.
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ import numpy as np
 _HERE = pathlib.Path(__file__).parent
 _LIB = None
 _TRIED = False
+_BUILD_ERROR: str | None = None
 
 
 def _build() -> pathlib.Path | None:
+    global _BUILD_ERROR
     srcs = [
         _HERE / "samtext.cpp", _HERE / "fccount.cpp", _HERE / "pack.cpp",
         _HERE / "bgzf.cpp", _HERE / "snppile.cpp", _HERE / "dpalign.cpp",
@@ -33,12 +36,18 @@ def _build() -> pathlib.Path | None:
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-o", str(out)]
             + [str(s) for s in srcs] + ["-lz"],
-            check=True, capture_output=True, timeout=120,
+            check=True, capture_output=True, text=True, timeout=120,
         )
         return out
     except Exception as e:  # no toolchain / failed build → fallback
+        _BUILD_ERROR = f"{e}\n{getattr(e, 'stderr', '') or ''}".strip()
         print(f"// native build skipped: {e}", file=sys.stderr)
         return None
+
+
+def build_error() -> str | None:
+    """Why the last build failed (g++'s own message included), or None."""
+    return _BUILD_ERROR
 
 
 def get_lib():

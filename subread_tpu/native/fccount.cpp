@@ -858,7 +858,7 @@ extern "C" long fc_bam_split_offsets(
 // ---------------------------------------------------------------------------
 // Device-count section extraction: turn a SAM/BAM stream into per-record
 // arrays (chrom index, CIGAR ref-sections, flag, NH, qname hash) that the
-// host maps into the DeviceCounter's window coordinates and the TPU kernel
+// host maps into the DeviceCounter's window coordinates and the device kernel
 // consumes.  Replaces the per-line Python parser (the end-to-end
 // bottleneck of --deviceCounts).  Sections follow the engine's
 // M/D/N/maxMOp semantics (readSummary.c process_line_buffer analog).

@@ -8,8 +8,7 @@ any length costs 1 and the optimum simply maximises matched bases.  For a
 known net indel size (from the vote cluster's head/tail sections) the
 optimal single-indel placement is therefore the split point s minimising
 head-mismatches(0..s) + tail-mismatches(s..L): an O(L) prefix/suffix
-cumulative-sum scan instead of an O(L·band) DP — dense, branchless,
-TPU-shaped.
+cumulative-sum scan instead of an O(L·band) DP — dense and branchless.
 """
 
 from __future__ import annotations
@@ -44,10 +43,10 @@ def genome_window(genome_u32: jnp.ndarray, start: jnp.ndarray, L: int) -> jnp.nd
     G = len(genome_u32)
     w0 = jnp.minimum(start >> 4, np.uint32(max(G - nw, 0)))
     if G % 8 == 0:
-        # ROW-gather fast path: fetching [NR, 8]-word rows is far cheaper
-        # per element than scalar word gathers on this TPU (same finding
-        # as vote.gather_hits' combined index rows); the per-row word
-        # phase is fixed up with a static 3-step shift ladder.
+        # ROW-gather fast path: fetch [NR, 8]-word rows instead of scalar
+        # words (the same layout as vote.gather_hits' combined index
+        # rows); the per-row word phase is fixed up with a static 3-step
+        # shift ladder.
         rows = genome_u32.reshape(-1, 8)
         NR = (nw + 7) // 8 + 1
         r0 = (w0 >> 3).astype(jnp.int32)

@@ -6,7 +6,7 @@ Reference: core-junction.c — major/minor vote-pair selection
 CT…AC rev, paired_chars_part_core :3472, donor_score :3675), junction
 event edges (find_new_junctions :3865).
 
-TPU formulation: the read's top-K vote clusters already exist; a junction
+Device formulation: the read's top-K vote clusters already exist; a junction
 candidate is (head cluster, tail cluster) on the same strand within the
 max intron span.  The optimal split point is the same prefix/suffix
 mismatch-cumsum scan as the indel placement (ops/extend.py) with the

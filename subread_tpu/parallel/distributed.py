@@ -1,13 +1,13 @@
-"""Multi-host orchestration over DCN (the reference has no distributed
-backend — SURVEY.md §2 mandates one for the TPU build).
+"""Multi-process orchestration (the reference has no distributed
+backend — SURVEY.md §2 mandates one).
 
-Design: `jax.distributed.initialize` connects the hosts; a global 1-D
-"reads" mesh spans every chip of every host.  Each host streams its own
-FASTQ shard (round-robin by read index so load balances regardless of
-file layout), feeds its local chips, and the small result statistics /
-event tables ride `psum` collectives over ICI+DCN.  Ordered output: each
-host writes `<out>.part-<proc>` and rank 0 concatenates (the analog of
-the reference's output_lock ordering, core.c:2383).
+Design: `jax.distributed.initialize` connects the processes, one process
+per card; a global 1-D "reads" mesh spans every card of every process.
+Each process streams its own FASTQ shard (round-robin by read index so
+load balances regardless of file layout), feeds its card, and the small
+result statistics / event tables ride `psum` collectives.  Ordered
+output: each process writes `<out>.part-<proc>` and rank 0 concatenates
+(the analog of the reference's output_lock ordering, core.c:2383).
 
 Everything here also runs single-process (the common case and the test
 path): `init_distributed()` is a no-op when no coordinator is configured.
@@ -20,6 +20,19 @@ import os
 import numpy as np
 
 
+def local_card(env=os.environ) -> list[int] | None:
+    """The one card this process keeps, as an index among the cards it
+    can see: its rank on this machine (LOCAL_RANK, as torchrun-style
+    launchers set it).  None where the card is already chosen or no rank
+    is known: CUDA_VISIBLE_DEVICES narrows what the process sees,
+    JAX_LOCAL_DEVICE_IDS and the SLURM / Open MPI local ranks are read by
+    jax.distributed itself."""
+    if "CUDA_VISIBLE_DEVICES" in env or "JAX_LOCAL_DEVICE_IDS" in env:
+        return None
+    rank = env.get("LOCAL_RANK")
+    return None if rank is None else [int(rank)]
+
+
 def init_distributed(
     coordinator: str | None = None,
     num_processes: int | None = None,
@@ -27,7 +40,11 @@ def init_distributed(
 ) -> bool:
     """Initialise jax.distributed from args or SUBREAD_TPU_COORDINATOR /
     JAX standard env vars.  Returns True when a multi-process runtime is
-    active."""
+    active.
+
+    One process per card: on a machine with several GPUs a process that
+    sees all of them reserves most of each card's memory, so the launcher
+    gives each process its card (see `local_card`)."""
     import jax
 
     coordinator = coordinator or os.environ.get("SUBREAD_TPU_COORDINATOR")
@@ -40,6 +57,9 @@ def init_distributed(
         kw["num_processes"] = num_processes
     if process_id is not None:
         kw["process_id"] = process_id
+    card = local_card()
+    if card is not None:
+        kw["local_device_ids"] = card
     jax.distributed.initialize(**kw)
     return jax.process_count() > 1
 
@@ -54,8 +74,8 @@ def host_shard_range(total: int, process_id: int, n_processes: int) -> range:
 
 
 def global_reads_mesh():
-    """1-D mesh over every chip of every host ("reads" data parallelism
-    across ICI within a host and DCN across hosts)."""
+    """1-D mesh over every card of every process ("reads" data
+    parallelism)."""
     import jax
     from jax.sharding import Mesh
 

@@ -16,7 +16,7 @@ vote fully in both neighbours.
 Layout: every shard is rebuilt with one SHARED bucket_bits (sized for the
 largest shard) so a single jitted vote graph serves all shards, and the
 per-shard comb_rows are padded to a common row count.  Each chip gathers
-hits only from its own shard (1/S of the index in HBM — the reason to
+hits only from its own shard (1/S of the index in device memory — the reason to
 shard), then partial top-K VoteResults are allgathered over the "index"
 axis and folded left-to-right — the same fold order as the single-device
 block loop in align.pipeline.Aligner, so results are bit-identical to it.
@@ -141,7 +141,7 @@ def index_sharded_vote(
     step(codes, ambig, lens, bs_stack, cb_stack, sb_stack, sl_stack) ->
     VoteResult replicated over the index axis, sharded over reads.  Each
     chip votes its reads against its index shard; the S partial top-K
-    tables are allgathered over ICI and folded with merge_vote_results
+    tables are allgathered over the mesh and folded with merge_vote_results
     (left-to-right, matching the single-device block loop so outputs are
     bit-identical)."""
     n_shards = mesh.shape[INDEX_AXIS]

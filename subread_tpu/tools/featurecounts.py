@@ -152,7 +152,10 @@ def _try_device_count(fc, ann, path, args) -> bool:
     return True
 
 
-def main(argv=None) -> int:
+def main(argv=None, device_fallbacks: list[str] | None = None) -> int:
+    """Run featureCounts.  device_fallbacks, when given, receives every
+    input that --deviceCounts handed back to the host counter (options
+    outside the kernel's subset, or a section overflow)."""
     args = build_parser().parse_args(argv)
     from ..io.gtf import load_annotation
     from ..quant.featurecounts import FCOptions, FeatureCounter
@@ -265,6 +268,8 @@ def main(argv=None) -> int:
         if args.deviceCounts and sc is None and not args.detail_format:
             if _try_device_count(fc, ann, path, args):
                 continue
+            if device_fallbacks is not None:
+                device_fallbacks.append(path)
             print(f"// deviceCounts: falling back to the host counter for "
                   f"{path}", file=sys.stderr)
         if args.detail_format:

@@ -1,6 +1,6 @@
 """globalReassembly: de-novo greedy contig assembly from reads.
 
-TPU-framework port of the reference's experimental standalone assembler
+JAX-framework port of the reference's experimental standalone assembler
 (global-reassembly.c; usage :153-157, driver main :1740).  The reference
 indexes every read fragment in an lnhash vote table and grows a contig by
 repeatedly voting for reads that overlap its current tip
